@@ -1,8 +1,8 @@
-"""Public one-shot APIs dispatch to the device kernels (VERDICT r2 #5).
+"""Public one-shot APIs dispatch to the device kernels.
 
 TPUZLIB_DEVICE=1 forces the dispatch on the CPU test backend (the same
-jit code paths as TPU, interpret-mode Pallas); the trace counters prove
-which path ran — a regression to 100% host fallback fails here.
+jit code paths as on the GPU); the trace counters prove which path ran —
+a regression to 100% host fallback fails here.
 Reference entries: sd-inflate.ts:189, sd-deflate.ts:263.
 """
 
@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 
 import tpuzlib
+from tpuzlib import corpus
 from tpuzlib.utils import trace
 
-TEXT = open("/root/reference/test/paradiselost.txt", "rb").read()
+TEXT = corpus.artifact("paradiselost.txt")
 
 
 @pytest.fixture(autouse=True)

@@ -1,4 +1,4 @@
-"""The five BASELINE.json measurement configs as explicit tests."""
+"""The five measurement configurations of BASELINE.md as explicit tests."""
 
 import zlib
 
@@ -6,13 +6,11 @@ import numpy as np
 import pytest
 
 import tpuzlib
-
-T = "/root/reference/test/"
+from tpuzlib import corpus
 
 
 def read(name):
-    with open(T + name, "rb") as f:
-        return f.read()
+    return corpus.artifact(name)
 
 
 def test_config1_inflate_corpus():
@@ -46,7 +44,7 @@ def test_config3_dynamic_zlib_vertices(level):
 def test_config4_streaming_parts_with_dictionary():
     """streaming chunked Inflater/Deflater (split streams) with preset
     dictionary."""
-    # reference's own split stream
+    # a split stream (one zlib stream cut in two)
     inf = tpuzlib.Inflater()
     bufs = inf.append(read("paradiselost.part1.deflate"))
     bufs += inf.append(read("paradiselost.part2.deflate"))

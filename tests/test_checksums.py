@@ -1,5 +1,5 @@
 """Checksum tests: oracle is Python's zlib (same math as reference
-src/adler32.ts / src/crc32.ts — verified by the reference's own corpus)."""
+src/adler32.ts / src/crc32.ts)."""
 
 import zlib
 
@@ -97,43 +97,113 @@ def test_public_api_types(rng):
     assert checksums.adler32(f32) == zlib.adler32(f32.tobytes())
 
 
-def test_crc32_pallas_kernel(rng):
-    """Fused unpack+matmul Pallas kernel (interpret mode on CPU) must
-    agree with zlib and with the jnp device path's linear forms."""
-    from tpuzlib.kernels import crc32 as crc_k
-    from tpuzlib.kernels.crc32_pallas import BLOCK, TILE, crc32_device_pallas
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 16383, 16384, 16385, 3 * 16384 + 64])
+@pytest.mark.parametrize("seed", [0, 77, 0xFFFFFFFF])
+def test_crc32_pallas_kernel(rng, n, seed):
+    """Fused Triton-route kernel (interpret mode on the CPU) + device
+    combine agree with zlib at the edges of a block (64 B) and of a
+    program's tile (16 KiB), for several seeds."""
+    d = rng.integers(0, 256, n, dtype=np.uint8)
+    assert crc_k.crc32_device(d, seed) == zlib.crc32(d.tobytes(), seed)
 
-    for n in (BLOCK * TILE, BLOCK * TILE * 2 + 12345, 100):
-        d = rng.integers(0, 256, n, dtype=np.uint8)
-        assert crc32_device_pallas(d) == zlib.crc32(d.tobytes())
-        assert crc32_device_pallas(d, seed=77) == zlib.crc32(d.tobytes(), 77)
+
+def test_crc32_kernel_forms_match_plain(rng):
+    """Kernel block forms == the plain XLA forms (the reference)."""
+    import jax.numpy as jnp
+
+    from tpuzlib.kernels import crc32_pallas
+
+    blocks = jnp.asarray(
+        rng.integers(0, 256, (3 * crc32_pallas.TILE, crc32_pallas.BLOCK),
+                     dtype=np.uint8)
+    )
+    assert np.array_equal(
+        np.asarray(crc32_pallas.forms(blocks)), np.asarray(crc_k.forms_xla(blocks))
+    )
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 5, 8, 13])
+def test_crc32_device_combine(rng, nb):
+    """Device log-depth combine (front zero-padding to a power of two)
+    == the host combine tree."""
+    import jax.numpy as jnp
+
+    g = rng.integers(0, 1 << 32, nb, dtype=np.uint32)
+    for block in (64, 1024):
+        dev = int(crc_k.combine_device(jnp.asarray(g), block))
+        assert dev == crc_k._combine_blocks(g, block)
+
+
+@pytest.mark.parametrize("backend,interpret", [("cpu", True), ("gpu", False)])
+def test_crc32_kernel_route(monkeypatch, backend, interpret):
+    """The kernel compiles through Triton on the GPU and is interpreted
+    only on the CPU."""
+    import jax
+
+    from tpuzlib.kernels import crc32_pallas
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert crc32_pallas._interpret() is interpret
+
+
+@pytest.mark.parametrize("backend", ["rocm", "METAL", "neuron"])
+def test_crc32_kernel_rejects_other_backends(monkeypatch, backend):
+    import jax
+
+    from tpuzlib.kernels import crc32_pallas
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    with pytest.raises(NotImplementedError):
+        crc32_pallas._interpret()
 
 
 def test_adler32_pallas_kernel(rng):
-    """Fused nibble-split+matmul Pallas kernel (interpret mode on CPU)
-    must agree with zlib across block-boundary sizes and seeds."""
-    from tpuzlib.kernels.adler32_pallas import BLOCK, TILE, adler32_device_pallas
-
-    for n in (BLOCK * TILE, BLOCK * TILE * 2 + 12345, 100, BLOCK + 1):
+    """Device Adler-32 (plain XLA block sums + modular combine) agrees
+    with zlib across block-boundary sizes and seeds."""
+    B = adler_k.DEVICE_BLOCK
+    for n in (B, 2 * B + 12345, 100, B + 1, 256 * B):
         d = rng.integers(0, 256, n, dtype=np.uint8)
-        assert adler32_device_pallas(d) == zlib.adler32(d.tobytes())
+        assert adler_k.adler32_device(d) == zlib.adler32(d.tobytes())
         seed = zlib.adler32(b"prefix bytes")
-        assert adler32_device_pallas(d, seed=seed) == zlib.adler32(
+        assert adler_k.adler32_device(d, seed=seed) == zlib.adler32(
             d.tobytes(), seed
         )
 
 
 def test_checksum_device_jit_scalars(rng):
-    """Fully-on-device jit entry points (Pallas forms + in-jit combine)
-    must return device scalars that agree with zlib — these are the
-    loop-differencing device-time forms used by bench.py."""
+    """The traceable device forms inside jit return device scalars that
+    finish to zlib's values: crc32's linear form L(data) and adler32's
+    (S, W) block sums."""
+    import jax
     import jax.numpy as jnp
-
-    from tpuzlib.kernels.adler32_pallas import adler32_device_jit
-    from tpuzlib.kernels.crc32_pallas import crc32_device_jit
 
     for n in (300_000, 1 << 19):
         d = rng.integers(0, 256, n, dtype=np.uint8)
         dd = jnp.asarray(d)
-        assert int(crc32_device_jit(dd)) == zlib.crc32(d.tobytes())
-        assert int(adler32_device_jit(dd)) == zlib.adler32(d.tobytes())
+        l_data = jax.jit(crc_k.linear_form_device)(dd)
+        assert isinstance(l_data, jax.Array) and l_data.shape == ()
+        assert crc_k._finish(int(l_data), n, 0) == zlib.crc32(d.tobytes())
+        B = adler_k.DEVICE_BLOCK
+        pad = (-n) % B
+        s_t, w_t = adler_k._get_blocks_fn(B)(jnp.pad(dd, (pad, 0)).reshape(-1, B))
+        assert isinstance(s_t, jax.Array) and s_t.shape == ()
+        s1 = (1 + int(s_t)) % adler_k.MOD
+        s2 = (n % adler_k.MOD + int(w_t)) % adler_k.MOD
+        assert (s2 << 16 | s1) == zlib.adler32(d.tobytes())
+
+
+@pytest.mark.gpu
+def test_checksums_on_gpu(gpu, rng):
+    """On a card: the compiled kernel's forms equal the plain forms, and
+    the device checksum paths agree with zlib on 64 MiB."""
+    import jax.numpy as jnp
+
+    from tpuzlib.kernels import crc32_pallas
+
+    d = rng.integers(0, 256, 64 << 20, dtype=np.uint8)
+    blocks = jnp.asarray(d).reshape(-1, crc32_pallas.BLOCK)
+    assert np.array_equal(
+        np.asarray(crc32_pallas.forms(blocks)), np.asarray(crc_k.forms_xla(blocks))
+    )
+    assert crc_k.crc32_device(d, 5) == zlib.crc32(d.tobytes(), 5)
+    assert adler_k.adler32_device(d) == zlib.adler32(d.tobytes())

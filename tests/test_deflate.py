@@ -1,6 +1,6 @@
 """Deflate tests: round-trips (self + zlib cross-oracle), size parity
-vs the reference at every level (BASELINE.md: reference == python zlib
-sizes, verified), containers, dictionaries, streaming."""
+with stdlib zlib at every level on the seeded corpora (tpuzlib.corpus),
+containers, dictionaries, streaming."""
 
 import gzip as gzip_mod
 import zlib
@@ -9,15 +9,13 @@ import numpy as np
 import pytest
 
 import tpuzlib
+from tpuzlib import corpus
 from tpuzlib import Deflater, deflate, inflate
 from tpuzlib.api.deflate_api import DeflaterOptions
 
-T = "/root/reference/test/"
-
 
 def read(name):
-    with open(T + name, "rb") as f:
-        return f.read()
+    return corpus.artifact(name)
 
 
 @pytest.fixture(scope="module")
@@ -43,11 +41,11 @@ def test_size_parity_vertices(level, vertices):
 
 
 def test_size_parity_corpus_artifacts(paradiselost):
-    """BASELINE.md size-parity corpus: beat the on-disk artifacts."""
-    assert len(deflate(paradiselost, level=6)) <= 193730
-    assert len(deflate(read("simple.txt"), level=6)) <= 56
+    """Size parity with the stdlib-made corpus artifacts at level 6."""
+    assert len(deflate(paradiselost, level=6)) <= len(read("paradiselost.deflate"))
+    assert len(deflate(read("simple.txt"), level=6)) <= len(read("simple.deflate"))
     gz = deflate(read("simple.txt"), format="gzip", fileName="simple.txt")
-    assert len(gz) <= 79
+    assert len(gz) <= len(read("simple.gz"))
 
 
 # --- round-trips through our own inflater and external oracles -------------

@@ -1,6 +1,6 @@
-"""Inflate tests: golden corpus (reference test/index.html decode matrix),
+"""Inflate tests: corpus decode matrix (reference test/index.html),
 streaming split-stream decode, preset dictionaries, error semantics.
-Oracle: reference corpus artifacts + Python zlib."""
+Oracle: stdlib-made corpus artifacts (tpuzlib.corpus) + Python zlib."""
 
 import zlib
 
@@ -8,15 +8,13 @@ import numpy as np
 import pytest
 
 import tpuzlib
+from tpuzlib import corpus
 from tpuzlib import Inflater, inflate
 from tpuzlib.api.inflate_api import InflaterOptions
 
-T = "/root/reference/test/"
-
 
 def read(name):
-    with open(T + name, "rb") as f:
-        return f.read()
+    return corpus.artifact(name)
 
 
 # --- container decode matrix (reference test/index.html:55-137) ------------

@@ -1,6 +1,6 @@
 """Cursor-parallel device inflate (kernels/inflate_device2).
 
-Runs on the CPU backend (conftest); the same jit programs serve the TPU.
+Runs on the CPU backend (conftest); the same jit programs serve the GPU.
 Oracle: python-zlib compressed streams and our own engine's streams.
 """
 
@@ -10,12 +10,8 @@ import numpy as np
 import pytest
 
 import tpuzlib
+from tpuzlib import corpus
 from tpuzlib.kernels.inflate_device2 import inflate_device_v2, _plan_blocks
-
-
-@pytest.fixture(scope="module")
-def paradiselost():
-    return open("/root/reference/test/paradiselost.txt", "rb").read()
 
 
 def _raw(payload):
@@ -40,49 +36,12 @@ def test_roundtrip_own_stream(paradiselost, device_expand):
     assert out is not None and bytes(out) == paradiselost
 
 
-def test_pallas_tokenizer_roundtrip(paradiselost, monkeypatch):
-    """Round-4 Pallas cursor tokenizer (interpret mode on CPU): dynamic,
-    fixed, and stored blocks through the full staged path.  The CPU
-    default is the XLA tokenize (interpret Pallas is slow), so this
-    opts in explicitly; on a TPU backend the Pallas path is the
-    default."""
-    monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
-    src = paradiselost[: 1 << 16]
-    wire = bytes(tpuzlib.deflate(src, level=6))
-    out = inflate_device_v2(
-        _raw(wire[2:-4]), stride_bits=1 << 13, max_cursors=256
-    )
-    assert out is not None and bytes(out) == src
-    # fixed-tree stream
-    fx = zlib.compressobj(1, zlib.DEFLATED, -15)
-    data = fx.compress(b"abcd" * 600) + fx.flush()
-    out = inflate_device_v2(_raw(data))
-    assert bytes(out) == b"abcd" * 600
-    # stored blocks (incompressible)
-    rng = np.random.default_rng(3)
-    rnd = rng.integers(0, 256, 1 << 14).astype(np.uint8).tobytes()
-    zc = zlib.compress(rnd, 6)
-    out = inflate_device_v2(_raw(zc[2:-4]))
-    assert out is not None and bytes(out) == rnd
-
-
-def test_pallas_tokenizer_host_expand(paradiselost, monkeypatch):
-    monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
-    src = paradiselost[: 1 << 15]
-    wire = bytes(tpuzlib.deflate(src, level=9))
-    out = inflate_device_v2(
-        _raw(wire[2:-4]), stride_bits=1 << 13, max_cursors=128,
-        device_expand=False,
-    )
-    assert out is not None and bytes(out) == src
-
-
 def test_spurious_eob_no_longer_needs_repair(paradiselost, monkeypatch):
-    """Round-4: this exact stream decodes a spurious EOB in one cursor's
-    speculation garbage (observed), which used to need the host repair
-    bridge.  Round 5's EOB-continuation kernels record the garbage EOB
-    as a flagged tape token and keep decoding, so the cursor self-syncs
-    and the FAST splice path handles the stream — no repair at all."""
+    """A 1 MiB stream with thousands of speculative cursor starts: a
+    spurious EOB decoded in a cursor's speculation garbage is recorded
+    as a flagged tape token and decoding continues, so the cursor
+    self-syncs and the FAST splice path handles the stream — no repair
+    at all."""
     monkeypatch.setenv("TPUZLIB_DEBUG_INFLATE", "")
     src = (paradiselost * 2)[: 1 << 20]
     wire = bytes(tpuzlib.deflate(src, level=6))
@@ -114,63 +73,13 @@ def test_splice_repair_forced_matches_fast_path(paradiselost, monkeypatch):
     zc = bytes(tpuzlib.deflate(mixed, level=6))
     rep = inflate_device_v2(_raw(zc[2:-4]), size_hint=len(mixed) + 1024)
     assert rep is not None and bytes(rep) == mixed
-    # pallas tokenizer plans skip LUT builds; the repair bridge must
-    # rebuild them on demand (round-4 regression: NoneType subscript)
-    monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
-    src2 = paradiselost[: 1 << 16]
-    w2 = bytes(tpuzlib.deflate(src2, level=6))
-    rep = inflate_device_v2(
-        _raw(w2[2:-4]), size_hint=len(src2) + 1024, stride_bits=1 << 13,
-        max_cursors=256,
-    )
-    assert rep is not None and bytes(rep) == src2
-
-
-def test_pallas_repair_fuzz(paradiselost, monkeypatch):
-    """Randomized streams (text / random / mixed / constant, levels 1-9)
-    through the Pallas tokenizer + splice repair: every trial must
-    round-trip or signal graceful fallback — never corrupt.  A 24-trial
-    sweep of the same generator passed 24/24 with zero fallbacks."""
-    monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
-    rng = np.random.default_rng(42)
-    for trial in range(8):
-        n = int(rng.integers(1 << 14, 1 << 16))
-        kind = trial % 4
-        if kind == 0:
-            src = (paradiselost * 2)[:n]
-        elif kind == 1:
-            src = rng.integers(0, 256, n, np.uint8).tobytes()
-        elif kind == 2:
-            parts = []
-            while sum(map(len, parts)) < n:
-                if rng.random() < 0.5:
-                    o = int(rng.integers(0, len(paradiselost) - 5000))
-                    parts.append(
-                        paradiselost[o : o + int(rng.integers(500, 5000))]
-                    )
-                else:
-                    parts.append(
-                        rng.integers(
-                            0, 256, int(rng.integers(200, 3000)), np.uint8
-                        ).tobytes()
-                    )
-            src = b"".join(parts)[:n]
-        else:
-            src = bytes([int(rng.integers(0, 4))]) * n
-        lvl = int(rng.integers(1, 10))
-        wire = zlib.compress(src, lvl)
-        out = inflate_device_v2(
-            _raw(wire[2:-4]), size_hint=len(src) + 1024,
-            stride_bits=1 << 13, max_cursors=256,
-        )
-        assert out is None or bytes(out) == src, (trial, kind, lvl, n)
 
 
 def test_v3_stream_fuzz(paradiselost, monkeypatch):
     """Streams from the v3 DEVICE encoder (different block geometry than
     zlib: few big blocks) through the device inflate, across chunk
-    sizes, tokenizer paths and bridge-chunk sizes — the round-5
-    bridge-overshoot bug lived exactly in this cross-path corner."""
+    sizes and bridge-chunk sizes — a bridge-overshoot bug once lived
+    exactly in this cross-path corner."""
     import zlib as _z
 
     from tpuzlib.kernels.deflate_device3 import deflate_device_v3
@@ -187,10 +96,6 @@ def test_v3_stream_fuzz(paradiselost, monkeypatch):
             )
         )
         assert _z.decompress(body, -15) == src
-        if trial % 2:
-            monkeypatch.setenv("TPUZLIB_PALLAS_TOK", "1")
-        else:
-            monkeypatch.delenv("TPUZLIB_PALLAS_TOK", raising=False)
         monkeypatch.setenv(
             "TPUZLIB_BRIDGE_CHUNK", str(int(rng.choice([256, 1024, 65536])))
         )
@@ -222,7 +127,7 @@ def test_single_and_fixed_blocks():
 
 
 def test_incompressible_decodes_on_device():
-    """Stored blocks decode via the transparent byte LUT (round 3) —
+    """Stored blocks decode via the transparent byte LUT —
     no host fallback (reference inline path: infblocks.ts:243-333)."""
     rng = np.random.default_rng(0)
     blob = rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
@@ -260,7 +165,7 @@ def test_dictionary(paradiselost):
 
 def test_fuzz_vs_zlib():
     rng = np.random.default_rng(7)
-    base = open("/root/reference/test/paradiselost.txt", "rb").read()
+    base = corpus.artifact("paradiselost.txt")
     for trial in range(6):
         n = int(rng.integers(2000, 1 << 17))
         off = int(rng.integers(0, len(base) - n))
@@ -275,7 +180,7 @@ def test_fuzz_vs_zlib():
 
 @pytest.mark.parametrize("ndev", [3, 8])
 def test_sharded_inflate_mesh(paradiselost, ndev):
-    """Multi-chip inflate: cursor tokenize sharded over a CPU mesh."""
+    """Multi-device inflate: cursor tokenize sharded over a CPU mesh."""
     from tpuzlib.parallel import make_mesh, sharded_inflate
 
     wire = bytes(tpuzlib.deflate(paradiselost, level=6))

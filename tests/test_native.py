@@ -6,6 +6,7 @@ import zlib
 import numpy as np
 import pytest
 
+from tpuzlib import corpus
 from tpuzlib.native.bindings import native_available
 
 pytestmark = pytest.mark.skipif(
@@ -110,7 +111,7 @@ def test_parallel_mixed_content_stored_alignment(rng):
     below zlib's size."""
     import tpuzlib
 
-    txt = open("/root/reference/test/paradiselost.txt", "rb").read()
+    txt = corpus.artifact("paradiselost.txt")
     data = (txt + rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()) * 4
     wire = tpuzlib.deflate(data, level=6)
     assert zlib.decompress(bytes(wire)) == data

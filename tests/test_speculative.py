@@ -5,6 +5,7 @@ import zlib
 import numpy as np
 import pytest
 
+from tpuzlib import corpus
 from tpuzlib.parallel.speculative import find_block_start, inflate_parallel
 
 
@@ -91,7 +92,7 @@ def test_find_all_block_starts_native_vs_numpy(monkeypatch):
 
     from tpuzlib.parallel import speculative as sp
 
-    text = open("/root/reference/test/paradiselost.txt", "rb").read()[: 1 << 18]
+    text = corpus.artifact("paradiselost.txt")[: 1 << 18]
     wire = zlib.compress(text, 6)
     buf = np.frombuffer(wire[2:-4], np.uint8)
 

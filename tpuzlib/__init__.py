@@ -1,15 +1,16 @@
-"""tpuzlib — a TPU-native DEFLATE codec framework.
+"""tpuzlib — a data-parallel DEFLATE codec framework in JAX.
 
-A brand-new, TPU-first compression framework with the full capabilities of
-stardazed/sd-zlib (reference: /root/reference/src/sd-zlib.ts:39-43 export
-surface): deflate/inflate with raw, zlib and gzip containers, streaming
-chunked ``Deflater``/``Inflater`` APIs, compression levels 1-9, preset
+A compression library with the full capabilities of stardazed/sd-zlib
+(the reference; src/sd-zlib.ts:39-43 export surface): deflate/inflate
+with raw, zlib and gzip containers, streaming chunked
+``Deflater``/``Inflater`` APIs, compression levels 1-9, preset
 dictionaries, and incremental adler32/crc32 checksums.
 
 Unlike the reference (a sequential byte-stream codec), tpuzlib is designed
-as an SPMD pipeline: checksums are GF(2)/modular linear algebra on the MXU,
-LZ77 match search + parse are vectorized data-parallel passes, Huffman bit
-packing uses prefix-sum scatter, and inflate is a two-pass parallel decoder
+as an SPMD pipeline for an accelerator (a GPU): checksums are
+GF(2)/modular linear algebra with integer matrix products, LZ77 match
+search + parse are vectorized data-parallel passes, Huffman bit packing
+uses prefix-sum scatter, and inflate is a two-pass parallel decoder
 (tokenize, then data-parallel expansion with pointer-doubling LZ
 resolution).  Independent chunks shard across a ``jax.sharding.Mesh``.
 

@@ -5,7 +5,7 @@ send_bits/bi_flush/bi_windup :352-374,574-583): token codes become
 (value, nbits) arrays; a prefix sum assigns every token its absolute bit
 offset and three weighted bincounts scatter the (disjoint) bit
 contributions into 32-bit words — O(log n)-depth, gather/scatter only,
-which is exactly the shape the TPU bit-pack kernel uses.
+which is exactly the shape the device bit-pack kernel uses.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ pointer (literals and window bytes are roots holding values; copy bytes
 point dist back, with the classic mod-dist rewrite making self-overlapping
 copies point strictly before their own token).  Pointer-doubling then
 resolves every byte to its root literal in O(log n) gather rounds — the
-ACEAPEX-style scheme (see PAPERS.md) that maps 1:1 onto TPU gathers.
+ACEAPEX-style scheme (see PAPERS.md) that maps 1:1 onto device gathers.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Redesign of the reference's serial hash-chain engine (src/deflate.ts:
 hash insert :1079-1085, longest_match chain walk :827-946, deflate_fast
-:953-1049, deflate_slow lazy matching :1054-1182).  TPU-first structure:
+:953-1049, deflate_slow lazy matching :1054-1182).  Data-parallel structure:
 
  1. hash every position (multiplicative hash of the next 4/6/8 bytes);
  2. recover the K most recent same-bucket predecessors of every position

@@ -152,20 +152,6 @@ def _parse_dynamic_rle(reader: BitReader):
     return hlit, lengths
 
 
-def parse_dynamic_lengths(reader: BitReader):
-    """Like parse_dynamic_header but returns only the VALIDATED
-    (lit_lengths, dist_lengths) — skipping the 2x32K flat-LUT builds the
-    canonical-decode device path does not need (~2 ms per dynamic
-    block)."""
-    hlit, lengths = _parse_dynamic_rle(reader)
-    try:
-        huffman.check_lengths(lengths[:hlit], "litlen")
-        huffman.check_lengths(lengths[hlit:], "dist")
-    except huffman.TreeError as e:
-        raise DataError(str(e))
-    return lengths[:hlit], lengths[hlit:]
-
-
 # --- vectorized segment decode ----------------------------------------------
 
 #: exit kinds for a segment walk

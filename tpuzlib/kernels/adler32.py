@@ -2,7 +2,7 @@
 
 Capability parity with reference src/adler32.ts (public adler32(source,
 seed=1) adler32.ts:17-24; NMAX deferred-modulo serial loop adler32.ts:26-105).
-The TPU-native redesign: for bytes x_0..x_{n-1} and seed (s1_0, s2_0),
+The data-parallel redesign: for bytes x_0..x_{n-1} and seed (s1_0, s2_0),
 
   s1 = (s1_0 + S) mod 65521,           S = sum x_i
   s2 = (s2_0 + n*s1_0 + W) mod 65521,  W = sum (n - i) * x_i
@@ -129,21 +129,14 @@ def _get_blocks_fn(block: int):
 
 
 def adler32_device(data, seed: int = 1, block: int = DEVICE_BLOCK) -> int:
-    """Adler-32 on the accelerator.
-
-    On TPU the fused Pallas kernel (adler32_pallas) is the default; the
-    jnp path below is the algorithmic reference and the CPU path."""
-    import jax
+    """Adler-32 on the accelerator: per-block (S, W) sums as one XLA
+    reduction over the bytes, then the modular combine on the device."""
     import jax.numpy as jnp
 
     n = int(data.shape[0])
     s1_0, s2_0 = _split(seed)
     if n == 0:
         return ((s2_0 << 16) | s1_0) & _MASK32
-    if block == DEVICE_BLOCK and jax.default_backend() == "tpu":
-        from .adler32_pallas import adler32_device_pallas
-
-        return adler32_device_pallas(data, seed)
     pad = (-n) % block
     if isinstance(data, np.ndarray):
         padded = np.concatenate([np.zeros(pad, dtype=np.uint8), data])

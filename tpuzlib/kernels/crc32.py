@@ -2,13 +2,13 @@
 
 Capability parity with reference src/crc32.ts (public crc32(source, seed=0)
 crc32.ts:17-23; slice-by-4 serial table kernel crc32.ts:48-106).  The
-TPU-native redesign replaces the serial byte fold with:
+data-parallel redesign replaces the serial byte fold with:
 
   1. per-block linear forms: for a B-byte block, the raw CRC register
      contribution  G = L(block)  is a GF(2)-linear function of the block's
      bits, computed as a bit-matrix product  bits(1, 8B) @ M_B(8B, 32) mod 2
-     — an int8 matmul that runs on the MXU, batched over thousands of
-     blocks at once;
+     — an int8 matmul with exact int32 accumulation, batched over
+     thousands of blocks at once;
   2. an associative log-depth combine across blocks using the byte-shift
      matrix A (raw-register propagation through one zero byte):
      raw(b0|b1) = A^B raw(b0) ^ raw(b1).
@@ -29,10 +29,10 @@ from . import gf2
 POLY = np.uint32(0xEDB88320)
 _MASK32 = 0xFFFFFFFF
 
-# Block sizes: host path favors wide lanes / short folds; device path favors
-# a large matmul contraction dimension.
+# Block sizes: the host fold favors wide lanes / short folds; the device
+# block keeps the (8B, 32) GF(2) matrix at 16 KiB of int8.
 HOST_BLOCK = 256
-DEVICE_BLOCK = 1024
+DEVICE_BLOCK = 64
 
 
 @functools.lru_cache()
@@ -173,68 +173,84 @@ def crc32_host(data: np.ndarray, seed: int = 0) -> int:
 # Device path (JAX)
 # ---------------------------------------------------------------------------
 
-_jit_cache = {}
 
-
-def _get_blocks_fn(block: int):
-    """Jitted (nb, B) uint8 -> (nb,) uint32 per-block linear forms."""
-    key = block
-    if key in _jit_cache:
-        return _jit_cache[key]
+def forms_xla(blocks):
+    """Per-block raw linear forms L(block) of (nb, B) u8 blocks -> (nb,)
+    u32, as plain XLA: the 8x bit expansion and one int8 matmul with
+    exact int32 accumulation.  The reference for the fused kernel in
+    crc32_pallas."""
     import jax
     import jax.numpy as jnp
 
+    nb, block = blocks.shape
     m_bits = jnp.asarray(block_matrix_bits(block))  # (8B, 32) int8
-
-    @jax.jit
-    def blocks_fn(blocks):
-        nb = blocks.shape[0]
-        shifts = jnp.arange(8, dtype=jnp.uint8)
-        bits = (blocks[:, :, None] >> shifts[None, None, :]) & jnp.uint8(1)
-        bits = bits.reshape(nb, block * 8).astype(jnp.int8)
-        acc = jax.lax.dot_general(
-            bits,
-            m_bits,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        g = (acc & 1).astype(jnp.uint32)
-        packed = jnp.sum(
-            g << jnp.arange(32, dtype=jnp.uint32)[None, :], axis=1, dtype=jnp.uint32
-        )
-        return packed
-
-    _jit_cache[key] = blocks_fn
-    return blocks_fn
+    shifts = jnp.arange(8, dtype=jnp.uint8)
+    bits = (blocks[:, :, None] >> shifts[None, None, :]) & jnp.uint8(1)
+    acc = jax.lax.dot_general(
+        bits.reshape(nb, block * 8).astype(jnp.int8),
+        m_bits,
+        dimension_numbers=(((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )
+    g = (acc & 1).astype(jnp.uint32)
+    return jnp.sum(
+        g << jnp.arange(32, dtype=jnp.uint32)[None, :], axis=1, dtype=jnp.uint32
+    )
 
 
-def crc32_device(data, seed: int = 0, block: int = DEVICE_BLOCK) -> int:
-    """CRC-32 with the per-block bit-matmuls on the accelerator.
-
-    On TPU the fused Pallas kernel (crc32_pallas) is the default — it
-    keeps the 8x bit expansion in VMEM instead of HBM.  The jnp path
-    below remains the algorithmic reference and the CPU-backend path.
-
-    ``data`` may be a numpy array or a device array; the O(n/B) combine
-    runs on host."""
-    import jax
+def combine_device(g, block: int):
+    """Fold per-block forms (earliest first) into L(data) on the device:
+    a log-depth tree of byte-table GF(2) matrix applications.  Front
+    padding with zero forms is free in the raw domain."""
     import jax.numpy as jnp
 
+    nb = g.shape[0]
+    size = 1 << max(0, (nb - 1).bit_length())
+    if size != nb:
+        g = jnp.concatenate([jnp.zeros(size - nb, jnp.uint32), g])
+    level = 0
+    while g.shape[0] > 1:
+        t = jnp.asarray(_combine_tables(block, level))
+        left, right = g[0::2], g[1::2]
+        g = (
+            t[0][(left & 0xFF).astype(jnp.int32)]
+            ^ t[1][((left >> jnp.uint32(8)) & 0xFF).astype(jnp.int32)]
+            ^ t[2][((left >> jnp.uint32(16)) & 0xFF).astype(jnp.int32)]
+            ^ t[3][(left >> jnp.uint32(24)).astype(jnp.int32)]
+            ^ right
+        )
+        level += 1
+    return g[0]
+
+
+def linear_form_device(data):
+    """Raw linear form L(data) of a flat u8 device array, as a u32 device
+    scalar (traceable): the fused kernel's block forms (crc32_pallas)
+    and the device combine."""
+    import jax.numpy as jnp
+
+    from .crc32_pallas import SPAN, forms
+
+    n = data.shape[0]
+    padded = jnp.pad(data, ((-n) % SPAN, 0))
+    return combine_device(forms(padded.reshape(-1, DEVICE_BLOCK)), DEVICE_BLOCK)
+
+
+@functools.lru_cache()
+def _linear_form_jit():
+    import jax
+
+    return jax.jit(linear_form_device)
+
+
+def crc32_device(data, seed: int = 0) -> int:
+    """CRC-32 of a u8 numpy or device array with the block forms and
+    their combine on the accelerator; only the seed finish (one 32x32
+    GF(2) product) runs on the host."""
     n = int(data.shape[0])
     if n == 0:
         return int(seed) & _MASK32
-    if block == DEVICE_BLOCK and jax.default_backend() == "tpu":
-        from .crc32_pallas import crc32_device_pallas
-
-        return crc32_device_pallas(data, seed)
-    pad = (-n) % block
-    if isinstance(data, np.ndarray):
-        padded = np.concatenate([np.zeros(pad, dtype=np.uint8), data])
-    else:
-        padded = jnp.pad(data, (pad, 0))
-    blocks = padded.reshape(-1, block)
-    g = np.asarray(_get_blocks_fn(block)(blocks))
-    l_data = _combine_blocks(g, block)
+    l_data = int(_linear_form_jit()(data))
     return _finish(l_data, n, seed)
 
 

@@ -1,11 +1,15 @@
-"""Pallas TPU kernel for CRC-32: fused bit-unpack + GF(2) matmul.
+"""CRC-32 block forms as one fused Pallas kernel (Triton route).
 
-The jnp device path (kernels/crc32.py) materializes the 8x bit expansion
-in HBM (8 bytes of traffic per input byte).  This kernel keeps the
-expansion in VMEM: each grid step DMAs a tile of raw bytes, unpacks to
-bits on-core, multiplies against the resident (8B, 32) GF(2) block
-matrix on the MXU, and writes only the 4-byte linear form per block —
-HBM traffic drops to ~1 byte in + 4/B bytes out per input byte.
+The plain form (crc32.forms_xla) writes the 8x bit expansion of the
+input to device memory and reads it back for the matmul.  This kernel
+keeps it on chip: each program loads TILE blocks of BLOCK bytes, unpacks
+one bit plane at a time in registers, multiplies it against that plane
+of the (8, BLOCK, 32) GF(2) block matrix with int8 operands and exact
+int32 accumulation, and writes only the 4-byte form per block — about
+1 + 4/BLOCK bytes of device-memory traffic per input byte.
+
+Accumulation is exact: a form bit sums at most 8 * BLOCK products of
+0/1 values before the parity is taken.
 """
 
 from __future__ import annotations
@@ -16,238 +20,68 @@ import numpy as np
 
 from . import crc32 as crc_k
 
-BLOCK = 1024  # bytes per CRC block (matches crc_k.DEVICE_BLOCK granularity)
-TILE = 256  # blocks per grid step
+BLOCK = crc_k.DEVICE_BLOCK  # bytes per CRC block
+TILE = 256  # blocks per program
+SPAN = BLOCK * TILE  # input bytes per program
 
 
-@functools.lru_cache()
-def _kernel_fn(block: int, tile: int):
+def _interpret() -> bool:
+    """Compiled through Triton on the GPU, interpreted on the CPU (tests);
+    no other backend is supported."""
     import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
 
-    interpret = jax.default_backend() != "tpu"  # CPU tests run interpreted
-
-    def kernel(blocks_ref, m_ref, out_ref):
-        raw = blocks_ref[:].astype(jnp.int32)  # (tile, block) in VMEM
-        # one MXU matmul per bit plane (avoids minor-dim reshapes, which
-        # Mosaic cannot lay out): acc += bits_i @ M_plane_i
-        acc = jnp.zeros((tile, 32), jnp.float32)
-        for i in range(8):
-            bits_i = ((raw >> i) & 1).astype(jnp.bfloat16)
-            m_i = m_ref[i * block : (i + 1) * block, :].astype(jnp.bfloat16)
-            acc = acc + jnp.dot(bits_i, m_i, preferred_element_type=jnp.float32)
-        # write the 32 parity columns; packing to u32 happens outside
-        # (Pallas wants tile-friendly output shapes)
-        out_ref[:] = acc.astype(jnp.int32) & 1
-
-    m_raw = crc_k.block_matrix_bits(block)  # (8B, 32) int8, row j*8+i
-    # regroup rows into bit planes: plane i rows are bytes' bit i
-    m_bits = np.concatenate([m_raw[i::8] for i in range(8)])
-
-    @jax.jit
-    def run(blocks):
-        nb = blocks.shape[0]
-        grid = nb // tile
-        g = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((nb, 32), jnp.int32),
-            grid=(grid,),
-            in_specs=[
-                pl.BlockSpec((tile, block), lambda i: (i, 0)),
-                pl.BlockSpec((block * 8, 32), lambda i: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((tile, 32), lambda i: (i, 0)),
-            interpret=interpret,
-        )(blocks, jnp.asarray(m_bits))
-        weights = jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32)
-        return jnp.sum(g.astype(jnp.uint32) * weights[None, :], axis=1,
-                       dtype=jnp.uint32)
-
-    return run
-
-
-def crc32_pallas_forms(blocks) -> np.ndarray:
-    """Per-block raw CRC linear forms via the fused Pallas kernel.
-
-    blocks: (nb, BLOCK) uint8 with nb a multiple of TILE."""
-    return _kernel_fn(BLOCK, TILE)(blocks)
-
-
-@functools.lru_cache()
-def _combine_matbits(block: int, level: int) -> np.ndarray:
-    """A^(block * 2^level) as a (32, 32) int8 bit matrix for the MXU:
-    row i, col j = bit j of the matrix applied to basis vector e_i."""
-    cols = crc_k._combine_mat(block, level)
-    return ((cols[:, None] >> np.arange(32, dtype=np.uint32)[None, :]) & 1).astype(
-        np.int8
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return False
+    if backend == "cpu":
+        return True
+    raise NotImplementedError(
+        f"crc32_pallas targets the GPU (Triton) or the CPU interpreter, "
+        f"not {backend!r}"
     )
 
 
-def _gf2_apply_device(jnp, matbits, v):
-    """Apply a 32x32 GF(2) matrix to u32 state vectors on the MXU."""
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = ((v[:, None] >> shifts[None, :]) & jnp.uint32(1)).astype(jnp.bfloat16)
-    acc = jnp.dot(bits, matbits.astype(jnp.bfloat16),
-                  preferred_element_type=jnp.float32)
-    g = acc.astype(jnp.int32) & 1
-    return jnp.sum(g.astype(jnp.uint32) << shifts[None, :], axis=1,
-                   dtype=jnp.uint32)
-
-
 @functools.lru_cache()
-def _fused_kernel_fn(block: int, tile: int):
-    """Round-5 kernel: forms + IN-KERNEL combine of each grid step's
-    `tile` blocks down to ONE linear form.
+def _plane_matrix() -> np.ndarray:
+    """(8, BLOCK, 32) int8: plane i holds the rows of bit i of each byte."""
+    m = crc_k.block_matrix_bits(BLOCK)  # row j*8 + i
+    return np.stack([m[i::8] for i in range(8)])
 
-    Round 4 recorded 2.48 GB/s for the device crc; copy-free timing
-    (tools/probe_crc3.py) showed the forms kernel actually runs at
-    ~90 GB/s and the recorded number was a measurement artifact (a 64 MB
-    carry copy in the timing loop).  The remaining real cost was the
-    XLA combine tree (~0.95 ms of small sequential ops); folding the
-    first log2(tile) levels in here leaves only log2(grid) tiny XLA
-    levels.  The `mix` input exists so timing loops can feed a changing
-    carry without copying the data array (hoist guard)."""
+
+def _kernel(x_ref, m_ref, o_ref):
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
-    interpret = jax.default_backend() != "tpu"
-    levels = tile.bit_length() - 1
-
-    if interpret:
-        def _roll(x, shift):
-            return jnp.roll(x, shift, axis=0)
-    else:
-        from jax.experimental.pallas import tpu as pltpu
-
-        def _roll(x, shift):
-            return pltpu.roll(x, shift, axis=0)
-
-    def kernel(mix_ref, blocks_ref, m_ref, cm_ref, out_ref):
-        raw = blocks_ref[:].astype(jnp.int32)  # (tile, block)
-        acc = jnp.zeros((tile, 32), jnp.float32)
-        for i in range(8):
-            bits_i = ((raw >> i) & 1).astype(jnp.bfloat16)
-            m_i = m_ref[i * block : (i + 1) * block, :].astype(jnp.bfloat16)
-            acc = acc + jnp.dot(bits_i, m_i, preferred_element_type=jnp.float32)
-        v = acc.astype(jnp.int32) & 1  # (tile, 32) bit columns
-        # in-kernel combine tree without sublane compaction (Mosaic has
-        # no strided sublane slicing): after level l, row i holds the
-        # combined form of blocks [i, i+2^l) for every i = 0 mod 2^l;
-        # other rows carry garbage that never reaches row 0.
-        for lvl in range(levels):
-            cm = cm_ref[lvl * 32 : (lvl + 1) * 32, :].astype(jnp.bfloat16)
-            shifted = (
-                jnp.dot(
-                    v.astype(jnp.bfloat16), cm,
-                    preferred_element_type=jnp.float32,
-                ).astype(jnp.int32)
-                & 1
-            )
-            # roll by tile - 2^lvl == roll by -(2^lvl) (pltpu.roll wants
-            # a non-negative shift); the wrapped rows are garbage rows
-            v = shifted ^ _roll(v, tile - (1 << lvl))
-        out_ref[:] = v[0:8] ^ (mix_ref[0, 0] & 0)
-
-    m_raw = crc_k.block_matrix_bits(block)
-    m_bits = np.concatenate([m_raw[i::8] for i in range(8)])
-    cm_np = np.concatenate(
-        [_combine_matbits(block, lvl) for lvl in range(levels)]
-    ).astype(np.int8)
-
-    @jax.jit
-    def run(blocks, mix):
-        nb = blocks.shape[0]
-        grid = nb // tile
-        g = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((grid * 8, 32), jnp.int32),
-            grid=(grid,),
-            in_specs=[
-                pl.BlockSpec((8, 128), lambda i: (0, 0)),
-                pl.BlockSpec((tile, block), lambda i: (i, 0)),
-                pl.BlockSpec((block * 8, 32), lambda i: (0, 0)),
-                pl.BlockSpec((levels * 32, 32), lambda i: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((8, 32), lambda i: (i, 0)),
-            interpret=interpret,
-        )(mix, blocks, jnp.asarray(m_bits), jnp.asarray(cm_np))
-        weights = jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32)
-        return jnp.sum(
-            g[0::8].astype(jnp.uint32) * weights[None, :], axis=1,
-            dtype=jnp.uint32,
-        )  # (grid,) span forms, span = tile*block bytes
-
-    return run
+    x = x_ref[...]  # (TILE, BLOCK) u8
+    acc = jnp.zeros((TILE, 32), jnp.int32)
+    for i in range(8):
+        plane = ((x >> i) & 1).astype(jnp.int8)
+        acc += pl.dot(plane, m_ref[i])  # int8 x int8 -> int32
+    shifts = jax.lax.broadcasted_iota(jnp.uint32, (TILE, 32), 1)
+    o_ref[...] = jnp.sum((acc & 1).astype(jnp.uint32) << shifts, axis=1)
 
 
-_scalar_cache = {}
-
-
-def crc32_device_jit(data, mix=None):
-    """Fully-on-device CRC-32 (seed 0) of a u8 device array.
-
-    Fused Pallas per-span linear forms (per-block matmuls + in-kernel
-    combine of TILE blocks) + a short on-device GF(2) tail combine + the
-    seed finish — one jit program returning a u32 device scalar.  This
-    is the in-jit/pipeline form of crc32_device_pallas (whose combine
-    runs on host); parity target reference src/crc32.ts:48-106.
-
-    `mix`: optional (8,128) i32 array consumed value-neutrally by the
-    kernel — timing loops feed their carry through it so XLA cannot
-    hoist the call (see PROFILE_r05 measurement-methodology note)."""
+def forms(blocks):
+    """Per-block raw CRC linear forms: (nb, BLOCK) u8 -> (nb,) u32, nb a
+    multiple of TILE.  Traceable."""
     import jax
     import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as pltriton
 
-    n = int(data.shape[0])
-    fn = _scalar_cache.get(("crc", n))
-    if fn is None:
-        span = BLOCK * TILE
-        pad = (-n) % span
-        nspan = (n + pad) // span
-        size = 1 << max(0, (nspan - 1).bit_length())
-        lvl0 = TILE.bit_length() - 1  # tail combine works on span forms
-        mats = [
-            jnp.asarray(_combine_matbits(BLOCK, lvl0 + lvl))
-            for lvl in range(max(1, size.bit_length() - 1))
-        ]
-        fconst = np.uint32(crc_k.gf2.apply(crc_k.shift_matrix(n), 0xFFFFFFFF))
-        inner = _fused_kernel_fn(BLOCK, TILE)
-
-        @jax.jit
-        def run(d, mx):
-            padded = jnp.pad(d, (pad, 0))
-            g = inner(padded.reshape(-1, BLOCK), mx)
-            if size != nspan:
-                g = jnp.concatenate([jnp.zeros(size - nspan, jnp.uint32), g])
-            for lvl in range(size.bit_length() - 1):
-                g = _gf2_apply_device(jnp, mats[lvl], g[0::2]) ^ g[1::2]
-            raw = g[0] ^ jnp.uint32(fconst)
-            return raw ^ jnp.uint32(0xFFFFFFFF)
-
-        fn = _scalar_cache[("crc", n)] = run
-    if mix is None:
-        import jax.numpy as jnp
-
-        mix = jnp.zeros((8, 128), jnp.int32)
-    return fn(data, mix)
-
-
-def crc32_device_pallas(data, seed: int = 0) -> int:
-    """CRC-32 with the Pallas per-block kernel + host combine tree."""
-    import jax.numpy as jnp
-
-    n = int(data.shape[0])
-    if n == 0:
-        return int(seed) & 0xFFFFFFFF
-    span = BLOCK * TILE
-    pad = (-n) % span
-    if isinstance(data, np.ndarray):
-        padded = np.concatenate([np.zeros(pad, dtype=np.uint8), data])
-    else:
-        padded = jnp.pad(data, (pad, 0))
-    blocks = padded.reshape(-1, BLOCK)
-    g = np.asarray(crc32_pallas_forms(blocks))
-    l_data = crc_k._combine_blocks(g, BLOCK)
-    return crc_k._finish(l_data, n, seed)
+    nb = blocks.shape[0]
+    return pl.pallas_call(
+        _kernel,
+        out_shape=jax.ShapeDtypeStruct((nb,), jnp.uint32),
+        grid=(nb // TILE,),
+        in_specs=[
+            pl.BlockSpec((TILE, BLOCK), lambda i: (i, 0)),
+            pl.BlockSpec((8, BLOCK, 32), lambda i: (0, 0, 0)),
+        ],
+        out_specs=pl.BlockSpec((TILE,), lambda i: (i,)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=2),
+        interpret=_interpret(),
+        name="crc32_forms",
+    )(blocks, jnp.asarray(_plane_matrix()))

@@ -1,51 +1,48 @@
-"""Device (TPU) deflate v3: sort-carried matching + Pallas screens +
+"""Device deflate v3: sort-carried matching + shifted-compare screens +
 sort-based histogram/pack.  One jit program encodes a whole batch of
 chunks end-to-end (dynamic trees included) with zero host sync.
 
-Why v3 (measured on the v5e, tools/probe_primitives.py):
+Design:
 
-  * XLA elementwise storms were the round-2 cost: near_match_dense's 128
-    shifted passes + k-deep probe compares ~250 ms/chunk.  The same
-    compares inside a Pallas VMEM kernel cost ~0.012 ns/elem
-    (screen_pallas.py) — the near band and the sorted-probe screens now
-    run there, with 16-byte verified prefixes.
-  * XLA sorts are cheap (0.13-0.6 ms per 288K) while gather/scatter are
-    7-14 ns/elem, so v3 replaces every large gather/scatter with sorts:
+  * Match screens are chains of shifted compares over flat position
+    arrays (a shift by d is a slice), with 16-byte verified prefixes so
+    most matches never need the gather-based extension.  XLA fuses each
+    screen's slices, compares and running max into one loop.
+  * Large gathers/scatters are replaced with sorts:
       - sorted-domain -> position-domain return is a 2-op sort, not a
         scatter-max;
-      - histograms are sort + boundary-compact, not 288K scatter-adds;
+      - histograms are sort + boundary-compact, not scatter-adds;
       - the bit packer is a monotonic bucketed-OR: entry list -> sort by
         word index -> cumsum -> boundary-compact -> adjacent diff (token
-        bit pieces within one word are disjoint, so sum == or);
-      - per-token code lookups are one-hot MXU matmuls in a Pallas
-        kernel (pack_fields), not 131K-deep gathers.
+        bit pieces within one word are disjoint, so sum == or).
   * Long matches resolve via the d-chain: a 16-byte screen that links to
     the same-distance screen 16 bytes ahead forms a segmented suffix
     scan (handles runs and any periodic data exactly); only chain-broken
     >=16 candidates use the gather-based extension, on a compacted list.
   * The batch is processed FLAT (B*(ctx+N) arrays, chunk id folded into
-    sort keys, per-chunk tables via Pallas grid index_map) — no
-    vmap-of-pallas_call, and fixed XLA op overheads amortize across the
-    batch.
+    sort keys) — fixed XLA op overheads amortize across the batch.
 
 Capability parity: reference longest_match + deflate_slow drivers
 (src/deflate.ts:827-946, :1054-1182), deftree build + send_all_trees
 (src/deftree.ts:190-267, deflate.ts:378-443), bit packer
-(deflate.ts:352-374).  Same forced-segment-break ratio trade as v2
-(SEG=1024).
+(deflate.ts:352-374).  Forced segment breaks every SEG=1024 positions
+trade a little ratio for a data-parallel parse.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
 from ..codec.lz77 import LEVELS, TOO_FAR
 from ..codec.tables import MAX_MATCH, MIN_MATCH, WINDOW_SIZE
-from . import deflate_device as dd
-from .deflate_device import CTX, SEG, _build_w32, sym_fields_v2
-from .screen_pallas import far_screen, near_screen
+from ..utils import trace as _trace
+from .deflate_device import (
+    CTX,
+    SEG,
+    _build_w32,
+    segment_parse_xla,
+    sym_fields_v2,
+)
 
 # per-level knobs: near-band depth, 4-byte probe depth, 6-byte probe depth
 LEVELS_V3 = {
@@ -78,6 +75,89 @@ def _hash_k(jnp, w0, w1, nbytes, bits):
     return ((v * C1) >> jnp.uint32(32 - bits)).astype(jnp.int32)
 
 
+# ---------------------------------------------------------------------------
+# match screens: shifted 16-byte prefix compares over flat arrays
+# ---------------------------------------------------------------------------
+
+
+def _shift(jnp, x, d, fill):
+    """y[p] = x[p - d], and ``fill`` where p < d."""
+    return jnp.concatenate([jnp.full(d, fill, x.dtype), x[:-d]])
+
+
+def _ctz_bytes(jnp, x):
+    """Trailing zero BYTES of u32 (4 when x == 0)."""
+    b0 = (x & jnp.uint32(0xFF)) != 0
+    b1 = (x & jnp.uint32(0xFF00)) != 0
+    b2 = (x & jnp.uint32(0xFF0000)) != 0
+    return jnp.where(
+        b0, 0, jnp.where(b1, 1, jnp.where(b2, 2, jnp.where(x != 0, 3, 4)))
+    )
+
+
+def _prefix16(jnp, a, b):
+    """Common prefix bytes (0..16) of two 16-byte windows, each given as
+    four u32 words (+0, +4, +8, +12 bytes)."""
+    x0, x1, x2, x3 = (p ^ q for p, q in zip(a, b))
+    return jnp.where(
+        x0 != 0,
+        _ctz_bytes(jnp, x0),
+        jnp.where(
+            x1 != 0,
+            4 + _ctz_bytes(jnp, x1),
+            jnp.where(
+                x2 != 0, 8 + _ctz_bytes(jnp, x2), 12 + _ctz_bytes(jnp, x3)
+            ),
+        ),
+    )
+
+
+def _pack_key(jnp, screen, dist):
+    """i32 best-match key: longer screen wins, then closer distance."""
+    return (screen.astype(jnp.int32) << 16) | (
+        jnp.int32(0xFFFF) - dist.astype(jnp.int32)
+    )
+
+
+def near_screen(jnp, w, mincand, lim16, nd):
+    """Best 16-byte-screened match among distances 1..nd, per position.
+
+    w: four flat (total,) u32 window-word arrays; mincand: lowest valid
+    candidate position; lim16: per-position screen cap (0..16).
+    Returns the packed key per position (0 = no match)."""
+    total = w[0].shape[0]
+    maxd = jnp.arange(total, dtype=jnp.int32) - mincand
+    best = jnp.zeros(total, jnp.int32)
+    for d in range(1, nd + 1):
+        sc = jnp.minimum(
+            _prefix16(jnp, w, [_shift(jnp, x, d, 0) for x in w]), lim16
+        )
+        ok = (d <= maxd) & (sc >= MIN_MATCH)
+        best = jnp.maximum(
+            best, jnp.where(ok, _pack_key(jnp, sc, jnp.int32(d)), 0)
+        )
+    return best
+
+
+def far_screen(jnp, sh, sp, s, k):
+    """Sorted-domain probe screen: for each row of the stable (hash, pos,
+    window) sort, check the k previous rows — the k most recent same-hash
+    predecessors, the sorted-domain image of a hash-chain walk (reference
+    deflate.ts:860-941).  Candidate validity is encoded upstream as
+    sentinel hashes, and screens are length-clipped afterwards in the
+    position domain.  s: the four sorted window-word arrays.
+    Returns the packed key per sorted row."""
+    best = jnp.zeros(sh.shape[0], jnp.int32)
+    for j in range(1, k + 1):
+        d = sp - _shift(jnp, sp, j, -1)
+        ok = (_shift(jnp, sh, j, -1) == sh) & (d >= 1) & (d <= WINDOW_SIZE)
+        sc = _prefix16(jnp, s, [_shift(jnp, x, j, 0) for x in s])
+        best = jnp.maximum(
+            best, jnp.where(ok & (sc >= MIN_MATCH), _pack_key(jnp, sc, d), 0)
+        )
+    return best
+
+
 def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     """Flat-batched match search over `total = B*(ctx+N)` positions.
 
@@ -93,7 +173,8 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     w3 = jnp.concatenate([w0[12:], jnp.zeros(12, jnp.uint32)])
     pos = jnp.arange(total, dtype=jnp.int32)
 
-    best = near_screen(jax, jnp, w0, w1, w2, w3, mincand, lim16, params["nd"])
+    w = [w0, w1, w2, w3]
+    best = near_screen(jnp, w, mincand, lim16, params["nd"])
 
     # invalid candidate positions (unfilled context) take a unique
     # sentinel hash: they can never match, so the probe sort needs no
@@ -110,7 +191,7 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
         sh, sp, s0, s1, s2, s3 = jax.lax.sort(
             (hc, pos, w0, w1, w2, w3), num_keys=1, is_stable=True
         )
-        fkeys = far_screen(jax, jnp, sh, sp, s0, s1, s2, s3, k)
+        fkeys = far_screen(jnp, sh, sp, [s0, s1, s2, s3], k)
         _, fpos = jax.lax.sort((sp, fkeys), num_keys=1, is_stable=True)
         best = jnp.maximum(best, fpos)
 
@@ -126,9 +207,9 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     link = (sc >= 16) & (d > 0) & (d16 == d) & (ch16 == chid)
 
     # --- residual extension: >=16 screens whose chain breaks -----------
-    # Measured on the text corpus: ~3K of 1.18M positions need this, so
-    # the candidate list is tiny; nonzero(size=) compacts it without the
-    # round-3 full-array sort, and the compare loop walks 16 B/step.
+    # On text only a few positions per thousand need this, so the
+    # candidate list is tiny; nonzero(size=) compacts it without a
+    # full-array sort, and the compare loop walks 16 B/step.
     # Overflowing the cap only shortens those matches to their chain
     # value (ratio, not correctness).
     need = (sc >= 16) & (d > 0) & ~link & (limit > 16)
@@ -140,8 +221,6 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     import os as _os
 
     if _os.environ.get("TPUZLIB_TRACE_EXT") == "1":
-        from ..utils import trace as _trace
-
         novf = jnp.maximum(
             jnp.sum(need.astype(jnp.int32)) - jnp.int32(ext_cap), 0
         )
@@ -206,10 +285,8 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     # segmented suffix recurrence: ml[i] = base[i] + link[i] * ml[i+16].
     # The result is clipped to MAX_MATCH=258 and every linked step
     # contributes base >= 16, so 17 unrolled shift-steps saturate any
-    # longer chain exactly (16 + 16*17 = 288 > 258) — replacing the
-    # round-3 associative_scan over (total/16, 16), whose log-depth
-    # strided slicing on a 16-lane minor dim was a measured multi-ms
-    # cost at the bench shape.
+    # longer chain exactly (16 + 16*17 = 288 > 258), with no log-depth
+    # strided scan.
     gi = link.astype(jnp.int32)
     ml = base
     for _ in range(17):
@@ -267,14 +344,10 @@ def _tokens_v3(jax, jnp, B, ctx, N, data, ctx_valids, n_valids, level):
     stepf = step.reshape(flatN)
     nvf = jnp.repeat(n_valids, N)
     localN = jnp.tile(jnp.arange(N, dtype=jnp.int32), B)
-    if jax.default_backend() == "tpu":
-        from .parse_pallas import segment_parse_pallas as parse
-    else:
-        from .deflate_device import segment_parse_xla as parse
     # the parse treats the flat array as one stream; SEG divides N so
     # segment seeds align with chunk starts, and per-chunk n_valid
     # masking happens here (the parse's own n_valid is the full span)
-    starts = parse(jax, jnp, stepf, flatN, seg=SEG)
+    starts = segment_parse_xla(jax, jnp, stepf, flatN, seg=SEG)
     starts = starts & (localN < nvf)
     starts = starts.reshape(B, N)
     litlen = jnp.where(
@@ -328,147 +401,53 @@ def _hist_sorted(jax, jnp, B, skey, nbins, nsym_real):
 
 
 # ---------------------------------------------------------------------------
-# Pallas pack-fields kernel: token -> (lo, hi, nb) via one-hot MXU lookups
+# per-token fields: symbol decomposition + per-chunk code-table lookups
 # ---------------------------------------------------------------------------
 
-PACK_TILE = 512
 
+def pack_fields(jax, jnp, tok, lcodes, lbits, dcodes, dbits):
+    """Token tape -> (lo u32, hi u32, nb i32) bit fields per token.
 
-@functools.lru_cache()
-def _pack_fields_kernel(nrows: int, steps_per_chunk: int, interpret: bool):
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    tok: (B, T) u32 tokens (bits 0-8 litlen, bit 9 is-match, bits 10+
+    distance-1; 511 is the pad sentinel, which emits nothing).
+    lcodes/lbits: (B, 286) literal/length codes and lengths;
+    dcodes/dbits: (B, 30) distance codes and lengths.  A token's bits
+    are code | extra | dist code | dist extra, LSB first, split over two
+    words (at most 15+5+15+13 = 48 bits)."""
+    litlen = (tok & jnp.uint32(0x1FF)).astype(jnp.int32)
+    is_match = ((tok >> jnp.uint32(9)) & 1) == 1
+    dist = ((tok >> jnp.uint32(10)).astype(jnp.int32) + 1) * is_match
+    lsym, lext, lext_val, dsym, dext, dext_val = sym_fields_v2(
+        jax, jnp, litlen, dist, is_match
+    )
+    # symbols past the real tables (the 511 pad) look up zero-width codes
+    lpad = ((0, 0), (0, 512 - lcodes.shape[1]))
+    dpad = ((0, 0), (0, 32 - dcodes.shape[1]))
+    lcode = jnp.take_along_axis(jnp.pad(lcodes, lpad), lsym, axis=1)
+    nb = jnp.take_along_axis(jnp.pad(lbits, lpad), lsym, axis=1)
+    dcode = jnp.take_along_axis(jnp.pad(dcodes, dpad), dsym, axis=1)
+    dnb = jnp.take_along_axis(jnp.pad(dbits, dpad), dsym, axis=1)
+    dcode = jnp.where(is_match, dcode, 0).astype(jnp.uint32)
+    dnb = jnp.where(is_match, dnb, 0)
 
-    NSYM = 384  # 288 lit symbols padded to lane multiple
-    NDSYM = 32
-
-    def kernel(tok_ref, lt_ref, dt_ref, lo_ref, hi_ref, nb_ref):
-        for r in range(8):
-            _row(tok_ref, lt_ref, dt_ref, lo_ref, hi_ref, nb_ref, r)
-
-    def _row(tok_ref, lt_ref, dt_ref, lo_ref, hi_ref, nb_ref, r):
-        tok = tok_ref[r][None, :]  # (1, PACK_TILE) u32
-        litlen = (tok & jnp.uint32(0x1FF)).astype(jnp.int32)
-        is_match = ((tok >> jnp.uint32(9)) & 1) == 1
-        dist = ((tok >> jnp.uint32(10)).astype(jnp.int32) + 1) * is_match
-
-        # arithmetic RFC1951 symbol decomposition (sym_fields_v2 logic)
-        l = jnp.clip(litlen - 3, 0, 255)
-        lf = jnp.maximum(l, 1).astype(jnp.float32)
-        e = (
-            jax.lax.bitcast_convert_type(lf, jnp.uint32) >> jnp.uint32(23)
-        ).astype(jnp.int32) - 127
-        sub = (l >> jnp.maximum(e - 2, 0)) & 3
-        lsym_m = jnp.where(l < 8, 257 + l, jnp.where(l == 255, 285, 253 + 4 * e + sub))
-        lsym = jnp.where(is_match, lsym_m, litlen)
-        lext = jnp.where((l < 8) | (l == 255), 0, jnp.maximum(e - 2, 0))
-        lext = jnp.where(is_match, lext, 0)
-        lext_val = jnp.where(is_match, l & ((1 << lext) - 1), 0).astype(jnp.uint32)
-
-        v = jnp.clip(dist - 1, 0, WINDOW_SIZE - 1)
-        vf = jnp.maximum(v, 1).astype(jnp.float32)
-        ed = (
-            jax.lax.bitcast_convert_type(vf, jnp.uint32) >> jnp.uint32(23)
-        ).astype(jnp.int32) - 127
-        dsym = jnp.where(v < 4, v, 2 * ed + ((v >> jnp.maximum(ed - 1, 0)) & 1))
-        dext = jnp.where((v < 4) | ~is_match, 0, jnp.maximum(ed - 1, 0))
-        dext_val = jnp.where(is_match, v & ((1 << dext) - 1), 0).astype(jnp.uint32)
-
-        # one-hot lookups on the MXU: (syms, tile) x (planes, syms)
-        srow = jax.lax.broadcasted_iota(jnp.int32, (NSYM, PACK_TILE), 0)
-        oh = (srow == jnp.broadcast_to(lsym, (NSYM, PACK_TILE))).astype(jnp.bfloat16)
-        lt = lt_ref[0].astype(jnp.bfloat16)  # (8, NSYM) byte planes
-        lfields = jax.lax.dot_general(
-            lt, oh, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-        ).astype(jnp.int32)  # (8, PACK_TILE)
-        drow = jax.lax.broadcasted_iota(jnp.int32, (NDSYM, PACK_TILE), 0)
-        ohd = (drow == jnp.broadcast_to(dsym, (NDSYM, PACK_TILE))).astype(jnp.bfloat16)
-        dt = dt_ref[0].astype(jnp.bfloat16)
-        dfields = jax.lax.dot_general(
-            dt, ohd, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-        ).astype(jnp.int32)
-
-        lcode = (
-            lfields[0:1] | (lfields[1:2] << 8) | (lfields[2:3] << 16)
-        ).astype(jnp.uint32)
-        lbits = lfields[3:4]
-        dcode = (
-            (dfields[0:1] | (dfields[1:2] << 8) | (dfields[2:3] << 16))
-            .astype(jnp.uint32)
-            * is_match
+    def emit2(lo, hi, nb, val, bits):
+        val = val.astype(jnp.uint32)
+        shc = jnp.clip(nb, 0, 31).astype(jnp.uint32)
+        in_lo = (jnp.where(nb < 32, val, 0) << shc).astype(jnp.uint32)
+        spill = jnp.where(
+            (nb > 0) & (nb < 32), val >> (jnp.uint32(32) - shc), 0
         )
-        dbits = dfields[3:4] * is_match
+        in_hi = jnp.where(
+            nb >= 32, val << jnp.clip(nb - 32, 0, 31).astype(jnp.uint32), spill
+        )
+        return lo | in_lo, (hi | in_hi).astype(jnp.uint32), nb + bits
 
-        def emit2(lo, hi, nb, val, bits):
-            val = val.astype(jnp.uint32)
-            shc = jnp.clip(nb, 0, 31).astype(jnp.uint32)
-            in_lo = (jnp.where(nb < 32, val, 0) << shc).astype(jnp.uint32)
-            spill = jnp.where((nb > 0) & (nb < 32), val >> (jnp.uint32(32) - shc), 0)
-            in_hi = jnp.where(
-                nb >= 32, val << jnp.clip(nb - 32, 0, 31).astype(jnp.uint32), spill
-            )
-            return lo | in_lo, (hi | in_hi).astype(jnp.uint32), nb + bits
-
-        lo = lcode
-        hi = jnp.zeros_like(lo)
-        nb = lbits
-        lo, hi, nb = emit2(lo, hi, nb, lext_val, lext)
-        lo, hi, nb = emit2(lo, hi, nb, dcode, dbits)
-        lo, hi, nb = emit2(lo, hi, nb, dext_val, dext)
-        lo_ref[r] = lo[0]
-        hi_ref[r] = hi[0]
-        nb_ref[r] = nb[0]
-
-    def run(tok2d, ltab, dtab):
-        # tok2d: (nrows, PACK_TILE) u32; ltab: (B, 8, NSYM) f32; dtab (B, 8, 32)
-        return pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((nrows, PACK_TILE), jnp.uint32),
-                jax.ShapeDtypeStruct((nrows, PACK_TILE), jnp.uint32),
-                jax.ShapeDtypeStruct((nrows, PACK_TILE), jnp.int32),
-            ),
-            grid=(nrows // 8,),
-            in_specs=[
-                pl.BlockSpec((8, PACK_TILE), lambda i: (i, 0)),
-                pl.BlockSpec(
-                    (1, 8, NSYM),
-                    lambda i: (i // steps_per_chunk, 0, 0),
-                ),
-                pl.BlockSpec(
-                    (1, 8, NDSYM),
-                    lambda i: (i // steps_per_chunk, 0, 0),
-                ),
-            ],
-            out_specs=(
-                pl.BlockSpec((8, PACK_TILE), lambda i: (i, 0)),
-                pl.BlockSpec((8, PACK_TILE), lambda i: (i, 0)),
-                pl.BlockSpec((8, PACK_TILE), lambda i: (i, 0)),
-            ),
-            interpret=interpret,
-        )(tok2d, ltab, dtab)
-
-    return run
-
-
-def _byte_planes(jnp, codes, bits, nsym_pad):
-    """(B, nsym) code/bits tables -> (B, 8, nsym_pad) f32 byte planes:
-    planes 0..2 = code bytes, plane 3 = bit count, 4..7 zero."""
-    B, nsym = codes.shape
-    planes = jnp.stack(
-        [
-            (codes & jnp.uint32(0xFF)).astype(jnp.float32),
-            ((codes >> jnp.uint32(8)) & jnp.uint32(0xFF)).astype(jnp.float32),
-            ((codes >> jnp.uint32(16)) & jnp.uint32(0xFF)).astype(jnp.float32),
-            bits.astype(jnp.float32),
-        ],
-        axis=1,
-    )  # (B, 4, nsym)
-    planes = jnp.concatenate([planes, jnp.zeros((B, 4, nsym), jnp.float32)], axis=1)
-    pad = nsym_pad - nsym
-    return jnp.pad(planes, ((0, 0), (0, 0), (0, pad)))
+    lo = lcode.astype(jnp.uint32)
+    hi = jnp.zeros_like(lo)
+    lo, hi, nb = emit2(lo, hi, nb, lext_val, lext)
+    lo, hi, nb = emit2(lo, hi, nb, dcode, dnb)
+    lo, hi, nb = emit2(lo, hi, nb, dext_val, dext)
+    return lo, hi, nb
 
 
 # ---------------------------------------------------------------------------
@@ -477,17 +456,13 @@ def _byte_planes(jnp, codes, bits, nsym_pad):
 
 
 def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
-                         ctx: int = CTX, stage: str = "full"):
+                         ctx: int = CTX):
     """encode(data u8[B, ctx+chunk], ctx_valid i32[B], n_valid i32[B],
     last i32[B]) -> (words u32[B, out_words], total_bits i32[B], ok i32[B])
 
     ok[b] == 0 when chunk b overflowed the token cap (caller re-encodes
     that chunk on host — happens only on pathological all-literal data,
-    where a stored block is the right encoding anyway).
-
-    stage: profiling knob (tools/profile_v3_post.py) — truncate the
-    program after 'tokens' | 'compact' | 'trees' | 'header' | 'fields';
-    'full' (default) is the production encoder."""
+    where a stored block is the right encoding anyway)."""
     jax, jnp = _jnp()
     from .huffman_device import (
         canonical_codes_device,
@@ -496,8 +471,8 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
     from ..codec.tables import CLC_ORDER
 
     B, N = batch, chunk
-    # multiple of 8*PACK_TILE: the pack kernel grid steps 8 rows at a time
-    T_CAP = max(PACK_TILE * 8, (N // 2 // (PACK_TILE * 8)) * PACK_TILE * 8)
+    # token cap: half the chunk, in whole 4096-token steps
+    T_CAP = max(4096, (N // 2 // 4096) * 4096)
     HDRF = 338  # 3 + 19 + 316 header fields
     clc_order = np.asarray(CLC_ORDER)
 
@@ -506,8 +481,6 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         starts, litlen, dist = _tokens_v3(
             jax, jnp, B, ctx, N, data, ctx_valids, n_valids, level
         )
-        if stage == "tokens":
-            return starts.astype(jnp.int32), litlen, dist
 
         # ---- compact tokens to (B, T_CAP) ------------------------------
         li = jnp.arange(N, dtype=jnp.int32)
@@ -529,8 +502,6 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         tok = tok.at[jnp.arange(B), eob_at].set(jnp.uint32(256))
         colt = jnp.arange(T_CAP, dtype=jnp.int32)[None, :]
         tok = jnp.where(colt > eob_at[:, None], jnp.uint32(511), tok)
-        if stage == "compact":
-            return tok, M, ok
 
         # ---- histograms (sort + boundary compact) ----------------------
         tlit = (tok & jnp.uint32(0x1FF)).astype(jnp.int32)
@@ -549,11 +520,10 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         dist_freq = _hist_sorted(jax, jnp, B, dkey + cb, 30, 30)
 
         # ---- trees (batched package-merge) -----------------------------
-        # one COMBINED (2B, 286) vmap on purpose: round 5 tried running
-        # lit/dist trees at native widths (two vmaps, dist at 30) — 45%
-        # less arithmetic but 2x the sequential small-op count, and the
-        # measured stage got SLOWER (39.6 -> 41.1 ms full encode).  The
-        # tree stage is dispatch-bound, not FLOP-bound.
+        # one COMBINED (2B, 286) vmap on purpose: lit/dist trees at native
+        # widths (two vmaps, dist at 30) do 45% less arithmetic but twice
+        # the sequential small ops, and this stage is bound by op count,
+        # not arithmetic.
         both = jnp.concatenate(
             [lit_freq, jnp.pad(dist_freq, ((0, 0), (0, 256)))], axis=0
         )  # (2B, 286)
@@ -563,8 +533,6 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
         codes = jax.vmap(lambda l: canonical_codes_device(jax, jnp, l))(lens)
         lcodes = codes[:B]
         dcodes = codes[B:, :30]
-        if stage == "trees":
-            return ll, dl, lcodes, dcodes
 
         # ---- dynamic header fields with RLE (per chunk) ----------------
         # the code-length sequence is RLE'd with symbols 16/17/18 exactly
@@ -650,22 +618,8 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
             axis=1,
         )
 
-        if stage == "header":
-            return hdr_vals, hdr_bits, ok
-
-        # ---- per-token fields (Pallas one-hot MXU lookups) -------------
-        ltab = _byte_planes(jnp, lcodes, ll, 384)
-        dtab = _byte_planes(jnp, dcodes, dl, 32)
-        nrows = B * T_CAP // PACK_TILE
-        interpret = jax.default_backend() != "tpu"
-        lo_t, hi_t, nb_t = _pack_fields_kernel(
-            nrows, T_CAP // PACK_TILE // 8, interpret
-        )(tok.reshape(nrows, PACK_TILE), ltab, dtab)
-        lo_t = lo_t.reshape(B, T_CAP)
-        hi_t = hi_t.reshape(B, T_CAP)
-        nb_t = nb_t.reshape(B, T_CAP)
-        if stage == "fields":
-            return lo_t, hi_t, nb_t
+        # ---- per-token fields -----------------------------------------
+        lo_t, hi_t, nb_t = pack_fields(jax, jnp, tok, lcodes, ll, dcodes, dl)
 
         # ---- unified field stream: head3 | header | tokens -------------
         head3 = (jnp.uint32(4) | lasts.astype(jnp.uint32))[:, None]
@@ -818,10 +772,10 @@ def _push_stored(sink, chunk_bytes: np.ndarray, is_last: bool) -> None:
 
 
 class DeviceDeflater:
-    """Streaming deflate with DEVICE-RESIDENT codec state (round 3).
+    """Streaming deflate with DEVICE-RESIDENT codec state.
 
     The match window (last CTX bytes) lives on the device as a jax array
-    and is carried across append() calls — the TPU analog of the
+    and is carried across append() calls — the device analog of the
     reference's persistent window/hash state across deflate() calls
     (deflate.ts:110-194, infblocks suspend/resume contract
     SURVEY.md §5 checkpoint/resume).  Input is staged into fixed-size
@@ -885,6 +839,7 @@ class DeviceDeflater:
             words, total_bits, ok = self._enc(
                 bufs, jnp.asarray(cv), jnp.asarray(nv), jnp.asarray(lv)
             )
+            _trace.count("deflate.device", int(nv.sum()))
             self._ctx = ctx
             self._ctx_valid = ctx_valid
             wh = np.asarray(words)
@@ -940,6 +895,7 @@ class DeviceDeflater:
         words, total_bits, ok = self._enc(
             bufs, jnp.asarray(cv), jnp.asarray(nv), jnp.asarray(lv)
         )
+        _trace.count("deflate.device", n)
         okh = int(np.asarray(ok)[0])
         tb = int(np.asarray(total_bits)[0])
         nstored = max(1, -(-n // 65535))

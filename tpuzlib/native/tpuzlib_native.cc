@@ -1,6 +1,6 @@
 // tpuzlib native runtime kernels (host side).
 //
-// The TPU owns the data-parallel compute path (kernels/*.py); these C++
+// The accelerator owns the data-parallel compute path (kernels/*.py); these C++
 // routines are the native runtime components around it — the serial
 // bitstream hot loops that a CPU does best:
 //   * tz_inflate_raw: raw-DEFLATE decode (pass-1+2 fused serial loop),

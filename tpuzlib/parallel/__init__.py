@@ -1,4 +1,4 @@
-"""Multi-chip sharding: mesh setup, sharded codec pipelines, halo
+"""Multi-device sharding: mesh setup, sharded codec pipelines, halo
 exchange, in-mesh checksum combines, ordered gather."""
 
 from .mesh import make_mesh, make_multihost_mesh

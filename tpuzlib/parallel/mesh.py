@@ -2,8 +2,9 @@
 
 The codec's parallelism is one-dimensional data parallelism over
 independent compressed units ("shards" axis) with nearest-neighbor halo
-flow — the window context rides ICI via ppermute, checksums combine via
-bit-planed psum (SURVEY.md §2 parallelism inventory)."""
+flow — the window context moves by ppermute, checksums combine via
+bit-planed psum (SURVEY.md §2 parallelism inventory).  Every device
+reaches every other at the same rate, so the mesh is one axis."""
 
 from __future__ import annotations
 
@@ -21,13 +22,12 @@ def make_mesh(n_devices: int | None = None, platform: str | None = None):
 
 
 def make_multihost_mesh(platform: str | None = None):
-    """Mesh over every chip in a multi-host slice.
+    """Mesh over every device of a multi-process run.
 
     Calls jax.distributed.initialize() when launched under a multi-host
     runtime (JAX coordinator env vars present); shard placement follows
     process order so the in-order gather (pipeline.py) reproduces stream
-    order across hosts — collectives ride ICI within a slice and DCN
-    across hosts exactly as jax lays the mesh out."""
+    order across hosts."""
     import os
 
     import jax
@@ -39,23 +39,3 @@ def make_multihost_mesh(platform: str | None = None):
     ):
         jax.distributed.initialize()
     return make_mesh(platform=platform)
-
-
-def shard_map_compat(f, mesh, in_specs, out_specs):
-    """shard_map across jax versions.
-
-    jax 0.9 enables check_vma by default, which rejects pallas_call
-    out_shapes (ShapeDtypeStruct has no vma) inside the mapped function;
-    older versions spelled the flag check_rep.  The codec's shard
-    residency is fully determined by in_specs/out_specs, so the varying
-    -across-mesh check adds nothing here."""
-    from jax import shard_map
-
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return shard_map(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw
-            )
-        except TypeError:
-            continue
-    raise RuntimeError("no compatible shard_map signature")

@@ -5,12 +5,12 @@ of the input with the previous shard's tail as dictionary context.  The
 SPMD program is one shard_map:
 
   1. halo exchange   — each shard sends its last `ctx` bytes to its right
-                       neighbor (lax.ppermute over ICI): the reference's
+                       neighbor (lax.ppermute): the reference's
                        preset-dictionary mechanism (deflate.ts:1184-1216)
                        generalized to chunk halos;
   2. local compress  — the FLAGSHIP v3 batched dynamic-Huffman encoder
                        (kernels/deflate_device3.make_encode_batch_v3:
-                       Pallas match screens, d-chain, lazy parse,
+                       match screens, d-chain, lazy parse,
                        package-merge trees, RLE headers, bucketed-OR
                        pack), one chunk per shard;
   3. checksum combine— per-shard adler (S, W) merged positionally with
@@ -23,6 +23,8 @@ SPMD program is one shard_map:
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -48,6 +50,7 @@ def _shard_shift_matrix_bits(shard_len: int, ndev: int, n: int | None = None) ->
     return mats
 
 
+@functools.lru_cache(maxsize=16)
 def build_sharded_deflate(
     mesh, shard_len: int, level: int = 6, ctx: int | None = None,
 ):
@@ -61,11 +64,11 @@ def build_sharded_deflate(
 
     Each shard runs the FLAGSHIP v3 dynamic-Huffman encoder
     (deflate_device3.make_encode_batch_v3, B=1) on its chunk with the
-    left neighbor's 32 KiB tail as halo context — the round-4 verdict's
-    mesh-port ask; the superseded v1/v2 mesh matchers are deleted.
+    left neighbor's 32 KiB tail as halo context.
     Checksums cover only valid bytes (padding is rolled to the shard
     front, where zeros are free for both adler's end-weighted sums and
-    the CRC linear form).
+    the CRC linear form).  Cached per (mesh, shard_len, level, ctx), so
+    repeated calls reuse one compiled program.
     """
     import jax
     import jax.numpy as jnp
@@ -76,55 +79,9 @@ def build_sharded_deflate(
     ndev = mesh.devices.size
     if ctx is None:
         ctx = min(1 << 15, shard_len)
-    assert shard_len % 128 == 0 and ctx % 128 == 0, (
-        "shard_len and ctx must be multiples of 128 (screen tiling)"
-    )
     out_words = min(shard_len + 4, (shard_len * 10) // 32 + 64)
     encode = make_encode_batch_v3(level, shard_len, 1, out_words, ctx=ctx)
     perm = [(i, (i + 1) % ndev) for i in range(ndev)]
-    crc_block = 256 if shard_len % 256 == 0 else 64
-    assert shard_len % crc_block == 0, "shard_len must be a multiple of 64"
-    nb_blocks = shard_len // crc_block
-    m_bits = jnp.asarray(crc_k.block_matrix_bits(crc_block))  # (8B, 32) int8
-
-    def local_crc_form(shard):
-        """Raw CRC linear form L(shard) via bit-matmul + local log-tree."""
-        nb = shard.shape[0] // crc_block
-        npow = 1 << max(0, (nb - 1).bit_length())
-        blocks = shard.reshape(nb, crc_block)
-        shifts = jnp.arange(8, dtype=jnp.uint8)
-        bits = ((blocks[:, :, None] >> shifts) & jnp.uint8(1)).reshape(
-            nb, crc_block * 8
-        )
-        acc = jax.lax.dot_general(
-            bits.astype(jnp.int8),
-            m_bits,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        g = (acc & 1).astype(jnp.uint32)
-        vals = jnp.sum(
-            g << jnp.arange(32, dtype=jnp.uint32)[None, :], axis=1, dtype=jnp.uint32
-        )
-        # pad to a power of two with zero forms AT THE FRONT (free in the
-        # raw domain) so the local combine tree is shape-static
-        if npow != nb:
-            vals = jnp.concatenate([jnp.zeros(npow - nb, jnp.uint32), vals])
-        # local combine tree over equal-size blocks
-        level_idx = 0
-        while vals.shape[0] > 1:
-            tables = jnp.asarray(crc_k._combine_tables(crc_block, level_idx))
-            left, right = vals[0::2], vals[1::2]
-            shifted = (
-                tables[0][(left & 0xFF).astype(jnp.int32)]
-                ^ tables[1][((left >> jnp.uint32(8)) & 0xFF).astype(jnp.int32)]
-                ^ tables[2][((left >> jnp.uint32(16)) & 0xFF).astype(jnp.int32)]
-                ^ tables[3][(left >> jnp.uint32(24)).astype(jnp.int32)]
-            )
-            vals = shifted ^ right
-            level_idx += 1
-        return vals[0]
-
     def step(data_shard, my_shift_bits, n):
         idx = jax.lax.axis_index("shards")
         n_valid = jnp.clip(n - idx * shard_len, 0, shard_len)
@@ -173,7 +130,7 @@ def build_sharded_deflate(
 
         # 3b. crc: shift local linear form by suffix matrix, XOR across
         # shards via bit-planed psum
-        l_local = local_crc_form(rolled.astype(jnp.uint8))
+        l_local = crc_k.linear_form_device(rolled.astype(jnp.uint8))
         in_bits = ((l_local >> jnp.arange(32, dtype=jnp.uint32)) & 1).astype(jnp.int32)
         out_bits = (
             jax.lax.dot_general(
@@ -194,15 +151,12 @@ def build_sharded_deflate(
             s_global[None], w_global[None], l_global[None],
         )
 
-    from jax.sharding import PartitionSpec as P  # noqa: F811
-
-    from .mesh import shard_map_compat
-
-    sharded = shard_map_compat(
+    sharded = jax.shard_map(
         step,
         mesh=mesh,
         in_specs=(P("shards"), P("shards"), P()),
         out_specs=(P("shards"), P("shards"), P("shards"), P(), P(), P()),
+        check_vma=False,
     )
 
     from jax.sharding import NamedSharding
@@ -304,7 +258,7 @@ def sharded_deflate(
 def sharded_inflate(data, mesh, stride_bits: int = 1 << 15,
                     max_cursors: int = 4096, size_hint: int | None = None,
                     dictionary=None):
-    """Mesh-parallel raw-DEFLATE decode (the multi-chip inflate path).
+    """Mesh-parallel raw-DEFLATE decode (the multi-device inflate path).
 
     Cursor-parallel speculative tokenization sharded over the mesh's
     "shards" axis (kernels/inflate_device2) — cursors are independent,
@@ -320,9 +274,9 @@ def sharded_inflate(data, mesh, stride_bits: int = 1 << 15,
     DEFLATE ref may chain transitively through the full 32 KiB window of
     every earlier block (no FULL_FLUSH history wipe in general streams),
     so a sharded expansion would need an all-gather of the whole output
-    per doubling step; the ICI traffic of log2(n) all-gathers exceeds
+    per doubling step; the traffic of log2(n) all-gathers exceeds
     the replicated compute it saves at any realistic stream size.
-    Scale-out across chips for inflate therefore comes from
+    Scale-out across devices for inflate therefore comes from
     data-parallel INDEPENDENT units — concatenated gzip members
     (parallel/members.py) and full-flush chunk boundaries — exactly the
     seams the reference's framing exposes (SURVEY.md §2 P1)."""

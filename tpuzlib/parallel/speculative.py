@@ -209,9 +209,9 @@ def find_all_block_starts(buf: np.ndarray, from_bit: int = 0,
     back to the vectorized numpy prefilter + per-candidate probes.
 
     Replaces the per-block find_block_start loop in block planning —
-    that repeated scan plus python probes measured 31 s for a 3.4 MB
-    stream (the real bottleneck of round-3's 0.24 MB/s device inflate);
-    the native pass runs in ~0.2 s and the planner just consumes it."""
+    that repeated scan plus python probes was the bottleneck of the
+    device inflate's block plan; the planner just consumes this one
+    pass."""
     import ctypes
 
     try:

@@ -1,15 +1,11 @@
-"""Allocator tuning for page-fault-expensive hosts.
+"""Allocator tuning for hosts where first-touch page faults are expensive.
 
-This environment (firecracker micro-VM) charges ~50 us per first-touch
-page fault: a fresh 64 MiB numpy buffer costs ~850 ms to touch while a
-warm one copies at 3 GB/s.  glibc malloc mmap()s every allocation above
-128 KiB and munmap()s it on free, so every large codec buffer is
-re-faulted on every call.
+glibc malloc mmap()s every allocation above 128 KiB and munmap()s it on
+free, so every large codec buffer is re-faulted on every call.
 
 tune_malloc() raises the mmap threshold so large buffers come from the
 (never-returned) heap and are faulted exactly once per process.  Called
-by bench.py and the one-shot engine paths; set TPUZLIB_MALLOC_TUNE=0 to
-disable.
+by the one-shot engine paths; set TPUZLIB_MALLOC_TUNE=0 to disable.
 """
 
 from __future__ import annotations
