@@ -26,6 +26,24 @@ def test_plan_discovers_all_blocks(paradiselost):
     assert not any(p[5] for p in plan)  # no open ends
 
 
+def test_cursor_plan_fits_many_blocks(paradiselost):
+    """A stream of many short blocks: the plan's one stride choice keeps
+    every block's rounded-up cursor count inside the budget."""
+    from tpuzlib.kernels.inflate_device2 import _cursor_plan
+
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    parts = [c.compress(paradiselost[i : i + 3000]) + c.flush(zlib.Z_FULL_FLUSH)
+             for i in range(0, 240000, 3000)]
+    raw = _raw(b"".join(parts) + c.flush())
+    nblocks = len(_plan_blocks(raw))
+    assert nblocks >= 80
+    cp = _cursor_plan(raw, 1 << 12, 128)
+    assert cp is not None and nblocks <= cp.K <= 128
+    assert cp.stride_bits % 4096 == 0
+    out = inflate_device_v2(raw, stride_bits=1 << 12, max_cursors=128)
+    assert out is not None and bytes(out) == paradiselost[:240000]
+
+
 @pytest.mark.parametrize("device_expand", [True, False])
 def test_roundtrip_own_stream(paradiselost, device_expand):
     wire = bytes(tpuzlib.deflate(paradiselost, level=6))

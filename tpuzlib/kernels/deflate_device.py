@@ -8,8 +8,7 @@ pipeline actually share remain:
 
   CTX / SEG            — window-context and parse-segment constants
   _build_w32           — per-byte u32 little-endian window views
-  segment_parse_xla    — pointer-doubling token-start extraction (the
-                         CPU fallback for kernels/parse_pallas.py)
+  segment_parse_xla    — pointer-doubling token-start extraction
   sym_fields_v2        — arithmetic RFC 1951 symbol decomposition
   _push_words          — device words -> BitSink host join
 
@@ -24,7 +23,10 @@ import numpy as np
 from ..codec.tables import WINDOW_SIZE
 
 CTX = WINDOW_SIZE  # fixed-size history prefix carried between chunks
-SEG = 1024  # forced token-break period (parse segment length)
+# forced token-break period (parse segment length).  A longer segment
+# cuts fewer matches and costs one more doubling round of the parse per
+# doubling; chunk sizes of batched encodes must be multiples of it.
+SEG = 4096
 
 
 def _build_w32(jnp, data):

@@ -25,7 +25,7 @@ Design:
 Capability parity: reference longest_match + deflate_slow drivers
 (src/deflate.ts:827-946, :1054-1182), deftree build + send_all_trees
 (src/deftree.ts:190-267, deflate.ts:378-443), bit packer
-(deflate.ts:352-374).  Forced segment breaks every SEG=1024 positions
+(deflate.ts:352-374).  Forced segment breaks every SEG=4096 positions
 trade a little ratio for a data-parallel parse.
 """
 
@@ -207,14 +207,15 @@ def match_lengths_v3(jax, jnp, data, lim16, limit, mincand, chid, level):
     link = (sc >= 16) & (d > 0) & (d16 == d) & (ch16 == chid)
 
     # --- residual extension: >=16 screens whose chain breaks -----------
-    # On text only a few positions per thousand need this, so the
-    # candidate list is tiny; nonzero(size=) compacts it without a
-    # full-array sort, and the compare loop walks 16 B/step.
-    # Overflowing the cap only shortens those matches to their chain
-    # value (ratio, not correctness).
+    # On text a few positions per thousand need this; on tables of
+    # fixed-size binary records (vertex data) about one in eight do.
+    # nonzero(size=) compacts the list without a full-array sort, and
+    # the compare loop walks 16 B/step.  Overflowing the cap only
+    # shortens those matches to their chain value (ratio, not
+    # correctness).
     need = (sc >= 16) & (d > 0) & ~link & (limit > 16)
-    ext_cap = max(1024, total // 256)
-    # cap-overflow attribution (ADVICE r4): positions beyond ext_cap keep
+    ext_cap = max(1024, total // 4)
+    # cap-overflow attribution: positions beyond ext_cap keep
     # their 16-byte chain value (shorter match, ratio-only).  With
     # TPUZLIB_TRACE_EXT=1 at program-build time the overflow count lands
     # in the trace counters so a ratio regression is attributable.
@@ -471,6 +472,10 @@ def make_encode_batch_v3(level: int, chunk: int, batch: int, out_words: int,
     from ..codec.tables import CLC_ORDER
 
     B, N = batch, chunk
+    if B > 1 and N % SEG:
+        # the flat parse seeds its segments every SEG positions; each
+        # chunk must start on a seed
+        raise ValueError(f"chunk {N} must be a multiple of {SEG} when batch > 1")
     # token cap: half the chunk, in whole 4096-token steps
     T_CAP = max(4096, (N // 2 // 4096) * 4096)
     HDRF = 338  # 3 + 19 + 316 header fields
